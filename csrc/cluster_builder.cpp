@@ -2,8 +2,8 @@
 //
 // The reference delegates acceleration-structure builds to the Vulkan driver
 // (src/context.rs:824-911, PREFER_FAST_TRACE); this is our native equivalent:
-// a C++ binned-SAH builder whose output is consumed by the TPU bundle tracer
-// (raytracer2_tpu/ops/traverse_bundle.py). Instead of emitting a node tree,
+// a C++ binned-SAH builder whose output is consumed by the bundle tracer
+// (raytracer2/ops/traverse_bundle.py). Instead of emitting a node tree,
 // it cuts the SAH tree into leaves of <= cluster_size triangles, producing a
 // triangle permutation + cluster ranges. SAH-guided clusters have much
 // tighter AABBs than fixed Morton chunks, which directly cuts the number of
@@ -11,7 +11,7 @@
 //
 // Exposed via a C ABI for ctypes (no pybind11 in this environment).
 //
-// Build: make -C csrc   (produces libraytracer2_native.so)
+// Built on first use by raytracer2/ops/native.py (libraytracer2_native.so).
 
 #include <algorithm>
 #include <cfloat>

@@ -5,7 +5,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from raytracer2_tpu.utils import brdf
+from raytracer2.utils import brdf
 
 
 def _uniforms(n, d, seed=0):

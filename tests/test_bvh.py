@@ -5,12 +5,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from raytracer2_tpu.models import procedural as proc
-from raytracer2_tpu.ops.bvh import build_lbvh, morton_codes_3d, validate_bvh
-from raytracer2_tpu.ops.intersect import intersect_brute_force, occluded_brute_force
-from raytracer2_tpu.ops.traverse import closest_hit, occluded
-from raytracer2_tpu.scene import gltf
-from raytracer2_tpu.scene.scene import build_scene
+from raytracer2.models import procedural as proc
+from raytracer2.ops.bvh import build_lbvh, morton_codes_3d, validate_bvh
+from raytracer2.ops.intersect import intersect_brute_force, occluded_brute_force
+from raytracer2.ops.traverse import closest_hit, occluded
+from raytracer2.scene import gltf
+from raytracer2.scene.scene import build_scene
 
 
 @pytest.fixture(scope="module")
@@ -113,16 +113,16 @@ def test_rays_through_empty_space_miss(sphere_bvh, sphere_scene):
 
 
 class TestBundleTracer:
-    """MXU bundle tracer parity (ops/traverse_bundle.py) vs brute force."""
+    """Bundle tracer parity (ops/traverse_bundle.py) vs brute force."""
 
     def _clusters(self, scene, size=16):
-        from raytracer2_tpu.ops.cluster import build_clusters
+        from raytracer2.ops.cluster import build_clusters
 
         return build_clusters(scene.tri_v0, scene.tri_edge1,
                               scene.tri_edge2, cluster_size=size)
 
     def test_closest_hit_parity(self, sphere_scene):
-        from raytracer2_tpu.ops.traverse_bundle import closest_hit_bundle
+        from raytracer2.ops.traverse_bundle import closest_hit_bundle
 
         clusters = self._clusters(sphere_scene)
         smin = jnp.min(clusters.aabb_min, 0)
@@ -144,7 +144,7 @@ class TestBundleTracer:
                                        np.asarray(ref.t)[m], rtol=1e-3)
 
     def test_occlusion_parity(self, sphere_scene):
-        from raytracer2_tpu.ops.traverse_bundle import occluded_bundle
+        from raytracer2.ops.traverse_bundle import occluded_bundle
 
         clusters = self._clusters(sphere_scene)
         smin = jnp.min(clusters.aabb_min, 0)
@@ -158,7 +158,7 @@ class TestBundleTracer:
         np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
 
     def test_per_ray_tmax_respected(self, sphere_scene):
-        from raytracer2_tpu.ops.traverse_bundle import closest_hit_bundle
+        from raytracer2.ops.traverse_bundle import closest_hit_bundle
 
         clusters = self._clusters(sphere_scene)
         smin = jnp.min(clusters.aabb_min, 0)
@@ -178,7 +178,7 @@ class TestBundleTracer:
 
 class TestNativeSAH:
     def test_native_available_and_valid(self, sphere_scene):
-        from raytracer2_tpu.ops import native
+        from raytracer2.ops import native
 
         if not native.available():
             pytest.skip("native toolchain unavailable")
@@ -196,8 +196,8 @@ class TestNativeSAH:
         np.testing.assert_array_equal(offsets[1:], offsets[:-1] + counts[:-1])
 
     def test_sah_clusters_tighter_than_morton(self, sphere_scene):
-        from raytracer2_tpu.ops import native
-        from raytracer2_tpu.ops.cluster import build_clusters
+        from raytracer2.ops import native
+        from raytracer2.ops.cluster import build_clusters
 
         if not native.available():
             pytest.skip("native toolchain unavailable")
@@ -219,15 +219,15 @@ class TestScatterTracer:
     """Scatter engine parity (ops/traverse_scatter.py) vs brute force."""
 
     def _sc(self, scene):
-        from raytracer2_tpu.ops.cluster import build_clusters
-        from raytracer2_tpu.ops.traverse_scatter import build_superclusters
+        from raytracer2.ops.cluster import build_clusters
+        from raytracer2.ops.traverse_scatter import build_superclusters
 
         clusters = build_clusters(scene.tri_v0, scene.tri_edge1,
                                   scene.tri_edge2, cluster_size=16)
         return build_superclusters(clusters, group=8)
 
     def test_closest_hit_parity(self, sphere_scene):
-        from raytracer2_tpu.ops.traverse_scatter import closest_hit_scatter
+        from raytracer2.ops.traverse_scatter import closest_hit_scatter
 
         sc = self._sc(sphere_scene)
         origins, dirs = _random_rays(512, seed=21, spread=5.0)
@@ -248,7 +248,7 @@ class TestScatterTracer:
             np.asarray(ref.triangle_index)[m])
 
     def test_occlusion_parity(self, sphere_scene):
-        from raytracer2_tpu.ops.traverse_scatter import occluded_scatter
+        from raytracer2.ops.traverse_scatter import occluded_scatter
 
         sc = self._sc(sphere_scene)
         origins, dirs = _random_rays(512, seed=23, spread=5.0)
@@ -260,7 +260,7 @@ class TestScatterTracer:
         np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
 
     def test_dead_lanes_never_hit(self, sphere_scene):
-        from raytracer2_tpu.ops.traverse_scatter import closest_hit_scatter
+        from raytracer2.ops.traverse_scatter import closest_hit_scatter
 
         sc = self._sc(sphere_scene)
         origins, dirs = _random_rays(128, seed=25, spread=5.0)
@@ -270,761 +270,3 @@ class TestScatterTracer:
             origins, dirs, 1e-3, tmax, avg_candidates=64)
         dead = np.arange(128) % 2 == 1
         assert np.all(np.asarray(got.missed)[dead])
-
-
-class TestPallasTracer:
-    """Pallas candidate-walk kernel parity (ops/pallas_traverse.py),
-    interpret mode (hardware runs are covered by the bench)."""
-
-    def test_closest_hit_parity(self, sphere_scene):
-        from raytracer2_tpu.ops.cluster import build_clusters
-        from raytracer2_tpu.ops.pallas_traverse import closest_hit_bundle_pallas
-
-        clusters = build_clusters(sphere_scene.tri_v0, sphere_scene.tri_edge1,
-                                  sphere_scene.tri_edge2, cluster_size=16)
-        smin = jnp.min(clusters.aabb_min, 0)
-        smax = jnp.max(clusters.aabb_max, 0)
-        origins, dirs = _random_rays(512, seed=31, spread=5.0)
-        ref = intersect_brute_force(
-            origins, dirs, sphere_scene.tri_v0, sphere_scene.tri_edge1,
-            sphere_scene.tri_edge2, sphere_scene.tri_geometry,
-            sphere_scene.tri_primitive, 1e-3, 1e5)
-        got = closest_hit_bundle_pallas(
-            clusters, sphere_scene.tri_geometry, sphere_scene.tri_primitive,
-            origins, dirs, 1e-3, jnp.full((512,), 1e5), smin, smax,
-            interpret=True)
-        np.testing.assert_array_equal(np.asarray(got.missed),
-                                      np.asarray(ref.missed))
-        m = ~np.asarray(ref.missed)
-        np.testing.assert_allclose(np.asarray(got.t)[m],
-                                   np.asarray(ref.t)[m], rtol=1e-3)
-
-    def test_occlusion_parity(self, sphere_scene):
-        from raytracer2_tpu.ops.cluster import build_clusters
-        from raytracer2_tpu.ops.pallas_traverse import occluded_bundle_pallas
-
-        clusters = build_clusters(sphere_scene.tri_v0, sphere_scene.tri_edge1,
-                                  sphere_scene.tri_edge2, cluster_size=16)
-        smin = jnp.min(clusters.aabb_min, 0)
-        smax = jnp.max(clusters.aabb_max, 0)
-        origins, dirs = _random_rays(512, seed=32, spread=5.0)
-        # mixed finite/infinite shadow-ray lengths
-        rng = np.random.default_rng(7)
-        tmax = jnp.asarray(np.where(rng.uniform(size=512) < 0.5,
-                                    rng.uniform(0.5, 6.0, 512), 1e5),
-                           jnp.float32)
-        ref = intersect_brute_force(
-            origins, dirs, sphere_scene.tri_v0, sphere_scene.tri_edge1,
-            sphere_scene.tri_edge2, sphere_scene.tri_geometry,
-            sphere_scene.tri_primitive, 1e-3, tmax)
-        got = occluded_bundle_pallas(
-            clusters, origins, dirs, 1e-3, tmax, smin, smax, interpret=True)
-        np.testing.assert_array_equal(np.asarray(got),
-                                      ~np.asarray(ref.missed))
-
-    def test_cull_kernel_parity(self, sphere_scene):
-        """cull_kernel=True (the fused Pallas dense-cull kernels,
-        ops/pallas_cull.py — the production TPU config) returns
-        BIT-IDENTICAL hits to the XLA chunked cull: the kernels compute
-        the same f32 slab arithmetic in the same op order, so candidate
-        sets, ordering, and winners all match."""
-        from raytracer2_tpu.ops.cluster import build_clusters
-        from raytracer2_tpu.ops.pallas_traverse import (
-            closest_hit_bundle_pallas, occluded_bundle_pallas)
-
-        clusters = build_clusters(sphere_scene.tri_v0, sphere_scene.tri_edge1,
-                                  sphere_scene.tri_edge2, cluster_size=16)
-        smin = jnp.min(clusters.aabb_min, 0)
-        smax = jnp.max(clusters.aabb_max, 0)
-        origins, dirs = _random_rays(512, seed=41, spread=5.0)
-        kw = dict(bundle_size=64, mb=2, group=2, k_cand=32, interpret=True)
-        base = closest_hit_bundle_pallas(
-            clusters, sphere_scene.tri_geometry, sphere_scene.tri_primitive,
-            origins, dirs, 1e-3, jnp.full((512,), 1e5), smin, smax,
-            cull_kernel=False, **kw)
-        fused = closest_hit_bundle_pallas(
-            clusters, sphere_scene.tri_geometry, sphere_scene.tri_primitive,
-            origins, dirs, 1e-3, jnp.full((512,), 1e5), smin, smax,
-            cull_kernel=True, **kw)
-        for field in ("t", "u", "v", "geometry_index", "primitive_id",
-                      "triangle_index"):
-            np.testing.assert_array_equal(
-                np.asarray(getattr(base, field)),
-                np.asarray(getattr(fused, field)), err_msg=field)
-        occ_base = occluded_bundle_pallas(
-            clusters, origins, dirs, 1e-3, jnp.full((512,), 10.0),
-            smin, smax, cull_kernel=False, **kw)
-        occ_fused = occluded_bundle_pallas(
-            clusters, origins, dirs, 1e-3, jnp.full((512,), 10.0),
-            smin, smax, cull_kernel=True, **kw)
-        np.testing.assert_array_equal(np.asarray(occ_base),
-                                      np.asarray(occ_fused))
-
-    def test_lean_winner_carry_parity(self, sphere_scene):
-        """lean=True (the [P]-wide winner-step carry + host-side slot
-        decode, the production incoherent-class config) returns
-        BIT-IDENTICAL hits to the default in-kernel code extraction —
-        same winner triangle at t-ties included, since both order by the
-        identical packed (t | slot) key."""
-        from raytracer2_tpu.ops.cluster import build_clusters
-        from raytracer2_tpu.ops.pallas_traverse import (
-            closest_hit_bundle_pallas)
-
-        clusters = build_clusters(sphere_scene.tri_v0, sphere_scene.tri_edge1,
-                                  sphere_scene.tri_edge2, cluster_size=16)
-        smin = jnp.min(clusters.aabb_min, 0)
-        smax = jnp.max(clusters.aabb_max, 0)
-        origins, dirs = _random_rays(512, seed=37, spread=5.0)
-        kw = dict(bundle_size=64, mb=2, group=2, k_cand=32, interpret=True)
-        base = closest_hit_bundle_pallas(
-            clusters, sphere_scene.tri_geometry, sphere_scene.tri_primitive,
-            origins, dirs, 1e-3, jnp.full((512,), 1e5), smin, smax,
-            lean=False, **kw)
-        lean = closest_hit_bundle_pallas(
-            clusters, sphere_scene.tri_geometry, sphere_scene.tri_primitive,
-            origins, dirs, 1e-3, jnp.full((512,), 1e5), smin, smax,
-            lean=True, **kw)
-        for field in ("t", "u", "v", "geometry_index", "primitive_id",
-                      "triangle_index"):
-            np.testing.assert_array_equal(
-                np.asarray(getattr(base, field)),
-                np.asarray(getattr(lean, field)), err_msg=field)
-
-    def test_hier_cull_parity(self, sphere_scene):
-        """Two-level (supercluster) culling returns the same hits as the
-        flat exact cull. k_sc covers every supercluster here, so hier is
-        mathematically identical to exact; small clusters force a real
-        multi-supercluster hierarchy."""
-        from raytracer2_tpu.ops.cluster import build_clusters
-        from raytracer2_tpu.ops.pallas_traverse import (
-            closest_hit_bundle_pallas, occluded_bundle_pallas)
-
-        clusters = build_clusters(sphere_scene.tri_v0, sphere_scene.tri_edge1,
-                                  sphere_scene.tri_edge2, cluster_size=4)
-        assert clusters.num_clusters >= 16
-        smin = jnp.min(clusters.aabb_min, 0)
-        smax = jnp.max(clusters.aabb_max, 0)
-        origins, dirs = _random_rays(512, seed=33, spread=5.0)
-        ref = intersect_brute_force(
-            origins, dirs, sphere_scene.tri_v0, sphere_scene.tri_edge1,
-            sphere_scene.tri_edge2, sphere_scene.tri_geometry,
-            sphere_scene.tri_primitive, 1e-3, 1e5)
-        got = closest_hit_bundle_pallas(
-            clusters, sphere_scene.tri_geometry, sphere_scene.tri_primitive,
-            origins, dirs, 1e-3, jnp.full((512,), 1e5), smin, smax,
-            interpret=True, cull="hier", m_super=4, k_sc=10_000)
-        np.testing.assert_array_equal(np.asarray(got.missed),
-                                      np.asarray(ref.missed))
-        m = ~np.asarray(ref.missed)
-        np.testing.assert_allclose(np.asarray(got.t)[m],
-                                   np.asarray(ref.t)[m], rtol=1e-3)
-
-        occ = occluded_bundle_pallas(
-            clusters, origins, dirs, 1e-3, jnp.full((512,), 1e5), smin, smax,
-            interpret=True, cull="hier", m_super=4, k_sc=10_000)
-        np.testing.assert_array_equal(np.asarray(occ),
-                                      ~np.asarray(ref.missed))
-
-    def test_sc_cull_parity(self, sphere_scene):
-        """Supercluster-WALK culling (cull="sc") is exact by construction:
-        the per-bundle SC candidate list is full-length (no top_k), so
-        hits must match the brute-force oracle exactly — misses, t, AND
-        triangle ids — for incoherent rays on a real multi-SC hierarchy,
-        for every (m_super, group) divisibility combination."""
-        from raytracer2_tpu.ops.cluster import build_clusters
-        from raytracer2_tpu.ops.pallas_traverse import (
-            closest_hit_bundle_pallas, occluded_bundle_pallas)
-
-        clusters = build_clusters(sphere_scene.tri_v0, sphere_scene.tri_edge1,
-                                  sphere_scene.tri_edge2, cluster_size=4)
-        assert clusters.num_clusters >= 16
-        smin = jnp.min(clusters.aabb_min, 0)
-        smax = jnp.max(clusters.aabb_max, 0)
-        origins, dirs = _random_rays(512, seed=34, spread=5.0)
-        ref = intersect_brute_force(
-            origins, dirs, sphere_scene.tri_v0, sphere_scene.tri_edge1,
-            sphere_scene.tri_edge2, sphere_scene.tri_geometry,
-            sphere_scene.tri_primitive, 1e-3, 1e5)
-        for m_super, group in ((4, 4), (8, 4), (4, 8)):
-            got = closest_hit_bundle_pallas(
-                clusters, sphere_scene.tri_geometry,
-                sphere_scene.tri_primitive,
-                origins, dirs, 1e-3, jnp.full((512,), 1e5), smin, smax,
-                interpret=True, cull="sc", m_super=m_super, group=group,
-                bundle_size=64, mb=2)
-            np.testing.assert_array_equal(np.asarray(got.missed),
-                                          np.asarray(ref.missed))
-            m = ~np.asarray(ref.missed)
-            np.testing.assert_allclose(np.asarray(got.t)[m],
-                                       np.asarray(ref.t)[m], rtol=1e-3)
-            np.testing.assert_array_equal(
-                np.asarray(got.triangle_index)[m],
-                np.asarray(ref.triangle_index)[m])
-            occ = occluded_bundle_pallas(
-                clusters, origins, dirs, 1e-3, jnp.full((512,), 1e5),
-                smin, smax, interpret=True, cull="sc", m_super=m_super,
-                group=group, bundle_size=64, mb=2)
-            np.testing.assert_array_equal(np.asarray(occ),
-                                          ~np.asarray(ref.missed))
-
-
-class TestOverflowSurfacing:
-    """The exact cull's per-bundle candidate truncation must be REPORTED,
-    never silent (VERDICT r2 #4): a k_cand far below the true union raises
-    the flag; a generous k_cand keeps it clear."""
-
-    def test_forced_overflow_is_reported(self, sphere_scene):
-        from raytracer2_tpu.ops.cluster import build_clusters
-        from raytracer2_tpu.ops.pallas_traverse import (
-            closest_hit_bundle_pallas, occluded_bundle_pallas)
-
-        clusters = build_clusters(sphere_scene.tri_v0, sphere_scene.tri_edge1,
-                                  sphere_scene.tri_edge2, cluster_size=4)
-        assert clusters.num_clusters >= 16
-        smin = jnp.min(clusters.aabb_min, 0)
-        smax = jnp.max(clusters.aabb_max, 0)
-        origins, dirs = _random_rays(512, seed=41, spread=5.0)
-        _, flag = closest_hit_bundle_pallas(
-            clusters, sphere_scene.tri_geometry, sphere_scene.tri_primitive,
-            origins, dirs, 1e-3, jnp.full((512,), 1e5), smin, smax,
-            interpret=True, k_cand=1, with_overflow=True)
-        assert bool(flag), "k_cand=1 must overflow on a multi-cluster scene"
-
-        _, flag_ok = closest_hit_bundle_pallas(
-            clusters, sphere_scene.tri_geometry, sphere_scene.tri_primitive,
-            origins, dirs, 1e-3, jnp.full((512,), 1e5), smin, smax,
-            interpret=True, k_cand=clusters.num_clusters, with_overflow=True)
-        assert not bool(flag_ok)
-
-        _, oflag = occluded_bundle_pallas(
-            clusters, origins, dirs, 1e-3, jnp.full((512,), 1e5), smin, smax,
-            interpret=True, k_cand=1, with_overflow=True)
-        assert bool(oflag)
-
-    def test_tracers_probe_wired(self, sphere_scene):
-        """make_tracers exposes the probe for the Pallas backend."""
-        from raytracer2_tpu.render.app_bridge import make_tracers
-
-        tr = make_tracers(sphere_scene, backend="bundle_pallas",
-                          cluster_size=4, k_cand=1)
-        assert tr.overflow_probe is not None
-
-
-class TestOverflowFallback:
-    """overflow_fallback (VERDICT r2 #1a): a k_cand far below the true
-    per-bundle union forces candidate truncation; the lax.cond fallback
-    re-traces through the XLA bundle walk, so results must STILL match
-    the brute-force oracle exactly. With the fallback disabled the same
-    k_cand produces false misses, proving the test actually bites."""
-
-    def _setup(self, sphere_scene):
-        from raytracer2_tpu.ops.cluster import build_clusters
-
-        clusters = build_clusters(
-            sphere_scene.tri_v0, sphere_scene.tri_edge1,
-            sphere_scene.tri_edge2, cluster_size=4)
-        smin = jnp.min(clusters.aabb_min, 0)
-        smax = jnp.max(clusters.aabb_max, 0)
-        origins, dirs = _random_rays(512, seed=33, spread=5.0)
-        ref = intersect_brute_force(
-            origins, dirs, sphere_scene.tri_v0, sphere_scene.tri_edge1,
-            sphere_scene.tri_edge2, sphere_scene.tri_geometry,
-            sphere_scene.tri_primitive, 1e-3, 1e5)
-        return clusters, smin, smax, origins, dirs, ref
-
-    def test_closest_hit_fallback_restores_parity(self, sphere_scene):
-        from raytracer2_tpu.ops.pallas_traverse import closest_hit_bundle_pallas
-
-        clusters, smin, smax, origins, dirs, ref = self._setup(sphere_scene)
-        kw = dict(bundle_size=128, k_cand=2, interpret=True,
-                  with_overflow=True)
-        rec, ovf = closest_hit_bundle_pallas(
-            clusters, sphere_scene.tri_geometry, sphere_scene.tri_primitive,
-            origins, dirs, 1e-3, jnp.full((512,), 1e5), smin, smax, **kw)
-        assert bool(ovf), "k_cand=2 must overflow on this scene"
-        np.testing.assert_array_equal(np.asarray(rec.missed),
-                                      np.asarray(ref.missed))
-        m = ~np.asarray(ref.missed)
-        np.testing.assert_allclose(np.asarray(rec.t)[m],
-                                   np.asarray(ref.t)[m], rtol=1e-3)
-
-        bare, ovf2 = closest_hit_bundle_pallas(
-            clusters, sphere_scene.tri_geometry, sphere_scene.tri_primitive,
-            origins, dirs, 1e-3, jnp.full((512,), 1e5), smin, smax,
-            overflow_fallback=False, **kw)
-        assert bool(ovf2)
-        assert (np.asarray(bare.missed) != np.asarray(ref.missed)).any(), \
-            "without the fallback, k_cand=2 should produce false misses"
-
-    def test_occlusion_fallback_restores_parity(self, sphere_scene):
-        from raytracer2_tpu.ops.pallas_traverse import occluded_bundle_pallas
-
-        clusters, smin, smax, origins, dirs, ref = self._setup(sphere_scene)
-        got, ovf = occluded_bundle_pallas(
-            clusters, origins, dirs, 1e-3, jnp.full((512,), 1e5),
-            smin, smax, bundle_size=128, k_cand=2, interpret=True,
-            with_overflow=True)
-        assert bool(ovf)
-        np.testing.assert_array_equal(np.asarray(got),
-                                      ~np.asarray(ref.missed))
-
-    def test_partial_fix_handles_multiple_bundles(self, sphere_scene):
-        """k_cand=1 overflows several bundles at once; the bounded
-        partial fallback must fix all of them, not just the first."""
-        from raytracer2_tpu.ops.pallas_traverse import closest_hit_bundle_pallas
-
-        clusters, smin, smax, origins, dirs, ref = self._setup(sphere_scene)
-        rec, ovf = closest_hit_bundle_pallas(
-            clusters, sphere_scene.tri_geometry, sphere_scene.tri_primitive,
-            origins, dirs, 1e-3, jnp.full((512,), 1e5), smin, smax,
-            bundle_size=128, k_cand=1, interpret=True, with_overflow=True)
-        assert bool(ovf)
-        np.testing.assert_array_equal(np.asarray(rec.missed),
-                                      np.asarray(ref.missed))
-        m = ~np.asarray(ref.missed)
-        np.testing.assert_allclose(np.asarray(rec.t)[m],
-                                   np.asarray(ref.t)[m], rtol=1e-3)
-
-    def test_full_fallback_past_bundle_budget(self, sphere_scene):
-        """When more than fallback_bundles bundles overflow, the full-batch
-        retrace must take over and still match the oracle exactly."""
-        from raytracer2_tpu.ops.pallas_traverse import closest_hit_bundle_pallas
-
-        clusters, smin, smax, origins, dirs, ref = self._setup(sphere_scene)
-        rec, ovf = closest_hit_bundle_pallas(
-            clusters, sphere_scene.tri_geometry, sphere_scene.tri_primitive,
-            origins, dirs, 1e-3, jnp.full((512,), 1e5), smin, smax,
-            bundle_size=128, k_cand=1, interpret=True, with_overflow=True,
-            fallback_bundles=0)
-        assert bool(ovf)
-        np.testing.assert_array_equal(np.asarray(rec.missed),
-                                      np.asarray(ref.missed))
-        m = ~np.asarray(ref.missed)
-        np.testing.assert_allclose(np.asarray(rec.t)[m],
-                                   np.asarray(ref.t)[m], rtol=1e-3)
-
-
-class TestMXUIntersect:
-    """mm=True evaluates the six Wald affines as [2P,4]@[4,W] dots on the
-    MXU (_intersect_block_mm + _wald_rows_mm component-major layout).
-    Parity with the brute oracle must be exact — precision=HIGHEST keeps
-    f32-accurate products, so hit/miss agreement holds at triangle edges."""
-
-    def test_closest_hit_mm_parity(self, sphere_scene):
-        from raytracer2_tpu.ops.cluster import build_clusters
-        from raytracer2_tpu.ops.pallas_traverse import closest_hit_bundle_pallas
-
-        clusters = build_clusters(sphere_scene.tri_v0, sphere_scene.tri_edge1,
-                                  sphere_scene.tri_edge2, cluster_size=16)
-        smin = jnp.min(clusters.aabb_min, 0)
-        smax = jnp.max(clusters.aabb_max, 0)
-        origins, dirs = _random_rays(512, seed=35, spread=5.0)
-        ref = intersect_brute_force(
-            origins, dirs, sphere_scene.tri_v0, sphere_scene.tri_edge1,
-            sphere_scene.tri_edge2, sphere_scene.tri_geometry,
-            sphere_scene.tri_primitive, 1e-3, 1e5)
-        got = closest_hit_bundle_pallas(
-            clusters, sphere_scene.tri_geometry, sphere_scene.tri_primitive,
-            origins, dirs, 1e-3, jnp.full((512,), 1e5), smin, smax,
-            interpret=True, mm=True)
-        np.testing.assert_array_equal(np.asarray(got.missed),
-                                      np.asarray(ref.missed))
-        m = ~np.asarray(ref.missed)
-        np.testing.assert_array_equal(np.asarray(got.triangle_index)[m],
-                                      np.asarray(ref.triangle_index)[m])
-        np.testing.assert_allclose(np.asarray(got.t)[m],
-                                   np.asarray(ref.t)[m], rtol=1e-3)
-
-    def test_occlusion_mm_parity(self, sphere_scene):
-        from raytracer2_tpu.ops.cluster import build_clusters
-        from raytracer2_tpu.ops.pallas_traverse import occluded_bundle_pallas
-
-        clusters = build_clusters(sphere_scene.tri_v0, sphere_scene.tri_edge1,
-                                  sphere_scene.tri_edge2, cluster_size=16)
-        smin = jnp.min(clusters.aabb_min, 0)
-        smax = jnp.max(clusters.aabb_max, 0)
-        origins, dirs = _random_rays(512, seed=36, spread=5.0)
-        ref = intersect_brute_force(
-            origins, dirs, sphere_scene.tri_v0, sphere_scene.tri_edge1,
-            sphere_scene.tri_edge2, sphere_scene.tri_geometry,
-            sphere_scene.tri_primitive, 1e-3, 1e5)
-        got = occluded_bundle_pallas(
-            clusters, origins, dirs, 1e-3, jnp.full((512,), 1e5),
-            smin, smax, interpret=True, mm=True)
-        np.testing.assert_array_equal(np.asarray(got),
-                                      ~np.asarray(ref.missed))
-
-
-class TestTCapAndDebugSteps:
-    """t_cap clamps each ray's t_max to its farthest overlapped-cluster
-    exit (a committable hit can never lie beyond it), retiring far-miss
-    rays from the bundle early-exit bound. Must be invisible in results;
-    debug_steps returns the per-bundle walk telemetry used to verify the
-    step reduction on hardware."""
-
-    def test_t_cap_parity_and_step_reduction(self, sphere_scene):
-        from raytracer2_tpu.ops.cluster import build_clusters
-        from raytracer2_tpu.ops.pallas_traverse import (
-            closest_hit_bundle_pallas, occluded_bundle_pallas)
-
-        clusters = build_clusters(sphere_scene.tri_v0, sphere_scene.tri_edge1,
-                                  sphere_scene.tri_edge2, cluster_size=4)
-        smin = jnp.min(clusters.aabb_min, 0)
-        smax = jnp.max(clusters.aabb_max, 0)
-        origins, dirs = _random_rays(1024, seed=11, spread=5.0)
-        tmax = jnp.full((1024,), 1e5)
-        ref = intersect_brute_force(
-            origins, dirs, sphere_scene.tri_v0, sphere_scene.tri_edge1,
-            sphere_scene.tri_edge2, sphere_scene.tri_geometry,
-            sphere_scene.tri_primitive, 1e-3, 1e5)
-        steps = {}
-        for tc in (False, True):
-            rec, info = closest_hit_bundle_pallas(
-                clusters, sphere_scene.tri_geometry,
-                sphere_scene.tri_primitive, origins, dirs, 1e-3, tmax,
-                smin, smax, bundle_size=128, interpret=True, t_cap=tc,
-                debug_steps=True)
-            np.testing.assert_array_equal(np.asarray(rec.missed),
-                                          np.asarray(ref.missed))
-            m = ~np.asarray(ref.missed)
-            np.testing.assert_array_equal(
-                np.asarray(rec.triangle_index)[m],
-                np.asarray(ref.triangle_index)[m])
-            blk, binfo = occluded_bundle_pallas(
-                clusters, origins, dirs, 1e-3, tmax, smin, smax,
-                bundle_size=128, interpret=True, t_cap=tc, debug_steps=True)
-            np.testing.assert_array_equal(np.asarray(blk),
-                                          ~np.asarray(ref.missed))
-            steps[tc] = (int(np.asarray(info["steps"]).sum()),
-                         int(np.asarray(binfo["steps"]).sum()))
-        # the cap can only remove work, never add it
-        assert steps[True][0] <= steps[False][0]
-        assert steps[True][1] <= steps[False][1]
-        # and on this scene it measurably does (occlusion path)
-        assert steps[True][1] < steps[False][1]
-
-
-class TestHierSortKey:
-    """sort_key="hier" computes the cull-order key via a dense
-    supercluster pass + per-SC refine (_hier_sort_key) instead of the
-    dense per-cluster pass — ~1/32 of the key cost. The candidate cull
-    stays per-ray exact, so hits must be identical to the oracle."""
-
-    def test_closest_hit_hier_key_parity(self, sphere_scene):
-        from raytracer2_tpu.ops.cluster import build_clusters
-        from raytracer2_tpu.ops.pallas_traverse import closest_hit_bundle_pallas
-
-        clusters = build_clusters(sphere_scene.tri_v0, sphere_scene.tri_edge1,
-                                  sphere_scene.tri_edge2, cluster_size=4)
-        smin = jnp.min(clusters.aabb_min, 0)
-        smax = jnp.max(clusters.aabb_max, 0)
-        origins, dirs = _random_rays(512, seed=37, spread=5.0)
-        ref = intersect_brute_force(
-            origins, dirs, sphere_scene.tri_v0, sphere_scene.tri_edge1,
-            sphere_scene.tri_edge2, sphere_scene.tri_geometry,
-            sphere_scene.tri_primitive, 1e-3, 1e5)
-        got = closest_hit_bundle_pallas(
-            clusters, sphere_scene.tri_geometry, sphere_scene.tri_primitive,
-            origins, dirs, 1e-3, jnp.full((512,), 1e5), smin, smax,
-            bundle_size=128, interpret=True, sort_key="hier")
-        np.testing.assert_array_equal(np.asarray(got.missed),
-                                      np.asarray(ref.missed))
-        m = ~np.asarray(ref.missed)
-        np.testing.assert_array_equal(np.asarray(got.triangle_index)[m],
-                                      np.asarray(ref.triangle_index)[m])
-
-    def test_occlusion_hier_key_parity(self, sphere_scene):
-        from raytracer2_tpu.ops.cluster import build_clusters
-        from raytracer2_tpu.ops.pallas_traverse import occluded_bundle_pallas
-
-        clusters = build_clusters(sphere_scene.tri_v0, sphere_scene.tri_edge1,
-                                  sphere_scene.tri_edge2, cluster_size=4)
-        smin = jnp.min(clusters.aabb_min, 0)
-        smax = jnp.max(clusters.aabb_max, 0)
-        origins, dirs = _random_rays(512, seed=38, spread=5.0)
-        ref = intersect_brute_force(
-            origins, dirs, sphere_scene.tri_v0, sphere_scene.tri_edge1,
-            sphere_scene.tri_edge2, sphere_scene.tri_geometry,
-            sphere_scene.tri_primitive, 1e-3, 1e5)
-        got = occluded_bundle_pallas(
-            clusters, origins, dirs, 1e-3, jnp.full((512,), 1e5),
-            smin, smax, bundle_size=128, interpret=True, sort_key="hier")
-        np.testing.assert_array_equal(np.asarray(got),
-                                      ~np.asarray(ref.missed))
-
-
-class TestIntervalCullPallas:
-    """cull="interval" in the Pallas engine: per-bundle conservative
-    interval slab test ([B, C]) instead of the dense per-ray pass, with
-    full-length candidate lists (no truncation/overflow path). Must be
-    hit-exact for ANY ray composition (the bundle bounds are
-    conservative), presorted or not."""
-
-    def test_closest_hit_interval_parity(self, sphere_scene):
-        from raytracer2_tpu.ops.cluster import build_clusters
-        from raytracer2_tpu.ops.pallas_traverse import closest_hit_bundle_pallas
-
-        clusters = build_clusters(sphere_scene.tri_v0, sphere_scene.tri_edge1,
-                                  sphere_scene.tri_edge2, cluster_size=16)
-        smin = jnp.min(clusters.aabb_min, 0)
-        smax = jnp.max(clusters.aabb_max, 0)
-        origins, dirs = _random_rays(512, seed=39, spread=5.0)
-        ref = intersect_brute_force(
-            origins, dirs, sphere_scene.tri_v0, sphere_scene.tri_edge1,
-            sphere_scene.tri_edge2, sphere_scene.tri_geometry,
-            sphere_scene.tri_primitive, 1e-3, 1e5)
-        for mm in (False, True):
-            got = closest_hit_bundle_pallas(
-                clusters, sphere_scene.tri_geometry,
-                sphere_scene.tri_primitive, origins, dirs, 1e-3,
-                jnp.full((512,), 1e5), smin, smax, bundle_size=128,
-                interpret=True, cull="interval", presorted=True, mm=mm)
-            np.testing.assert_array_equal(np.asarray(got.missed),
-                                          np.asarray(ref.missed))
-            m = ~np.asarray(ref.missed)
-            np.testing.assert_array_equal(np.asarray(got.triangle_index)[m],
-                                          np.asarray(ref.triangle_index)[m])
-            np.testing.assert_allclose(np.asarray(got.t)[m],
-                                       np.asarray(ref.t)[m], rtol=1e-3)
-
-    def test_occlusion_interval_parity_bounded(self, sphere_scene):
-        """Bounded-t_max shadow-like batch through the presorted path."""
-        from raytracer2_tpu.ops.cluster import build_clusters
-        from raytracer2_tpu.ops.pallas_traverse import occluded_bundle_pallas
-
-        clusters = build_clusters(sphere_scene.tri_v0, sphere_scene.tri_edge1,
-                                  sphere_scene.tri_edge2, cluster_size=16)
-        smin = jnp.min(clusters.aabb_min, 0)
-        smax = jnp.max(clusters.aabb_max, 0)
-        origins, dirs = _random_rays(512, seed=40, spread=5.0)
-        rng = np.random.default_rng(41)
-        tmax = jnp.asarray(rng.uniform(0.5, 20.0, (512,)).astype(np.float32))
-        ref = intersect_brute_force(
-            origins, dirs, sphere_scene.tri_v0, sphere_scene.tri_edge1,
-            sphere_scene.tri_edge2, sphere_scene.tri_geometry,
-            sphere_scene.tri_primitive, 1e-3, tmax)
-        got = occluded_bundle_pallas(
-            clusters, origins, dirs, 1e-3, tmax, smin, smax,
-            bundle_size=128, interpret=True, cull="interval",
-            presorted=True)
-        np.testing.assert_array_equal(np.asarray(got),
-                                      ~np.asarray(ref.missed))
-
-
-class TestOctZSortKey:
-    """sort_key="octz": dense-pass-free cull-order key (octant | t_max
-    bucket | arrival rank) for coherently-arriving batches. The exact
-    cull is order-independent, so hits must match the oracle exactly."""
-
-    def test_occlusion_octz_parity_bounded(self, sphere_scene):
-        from raytracer2_tpu.ops.cluster import build_clusters
-        from raytracer2_tpu.ops.pallas_traverse import occluded_bundle_pallas
-
-        clusters = build_clusters(sphere_scene.tri_v0, sphere_scene.tri_edge1,
-                                  sphere_scene.tri_edge2, cluster_size=4)
-        smin = jnp.min(clusters.aabb_min, 0)
-        smax = jnp.max(clusters.aabb_max, 0)
-        origins, dirs = _random_rays(512, seed=42, spread=5.0)
-        rng = np.random.default_rng(43)
-        tmax = jnp.asarray(rng.uniform(0.5, 20.0, (512,)).astype(np.float32))
-        ref = intersect_brute_force(
-            origins, dirs, sphere_scene.tri_v0, sphere_scene.tri_edge1,
-            sphere_scene.tri_edge2, sphere_scene.tri_geometry,
-            sphere_scene.tri_primitive, 1e-3, tmax)
-        got = occluded_bundle_pallas(
-            clusters, origins, dirs, 1e-3, tmax, smin, smax,
-            bundle_size=128, interpret=True, sort_key="octz")
-        np.testing.assert_array_equal(np.asarray(got),
-                                      ~np.asarray(ref.missed))
-
-    def test_closest_hit_octz_parity(self, sphere_scene):
-        from raytracer2_tpu.ops.cluster import build_clusters
-        from raytracer2_tpu.ops.pallas_traverse import closest_hit_bundle_pallas
-
-        clusters = build_clusters(sphere_scene.tri_v0, sphere_scene.tri_edge1,
-                                  sphere_scene.tri_edge2, cluster_size=4)
-        smin = jnp.min(clusters.aabb_min, 0)
-        smax = jnp.max(clusters.aabb_max, 0)
-        origins, dirs = _random_rays(512, seed=44, spread=5.0)
-        ref = intersect_brute_force(
-            origins, dirs, sphere_scene.tri_v0, sphere_scene.tri_edge1,
-            sphere_scene.tri_edge2, sphere_scene.tri_geometry,
-            sphere_scene.tri_primitive, 1e-3, 1e5)
-        got = closest_hit_bundle_pallas(
-            clusters, sphere_scene.tri_geometry, sphere_scene.tri_primitive,
-            origins, dirs, 1e-3, jnp.full((512,), 1e5), smin, smax,
-            bundle_size=128, interpret=True, sort_key="octz")
-        np.testing.assert_array_equal(np.asarray(got.missed),
-                                      np.asarray(ref.missed))
-        m = ~np.asarray(ref.missed)
-        np.testing.assert_array_equal(np.asarray(got.triangle_index)[m],
-                                      np.asarray(ref.triangle_index)[m])
-
-
-class TestPairTracer:
-    """Pair-sweep engine parity (ops/pallas_pairs.py) vs brute force,
-    interpret mode (hardware runs are covered by scripts/pairs_ab.py and
-    the bench --backend pairs)."""
-
-    def _ps(self, scene, group=4, cluster_size=16):
-        from raytracer2_tpu.ops.cluster import build_clusters
-        from raytracer2_tpu.ops.pallas_pairs import build_pair_scene
-
-        clusters = build_clusters(scene.tri_v0, scene.tri_edge1,
-                                  scene.tri_edge2,
-                                  cluster_size=cluster_size)
-        ps = build_pair_scene(clusters, scene.tri_geometry,
-                              scene.tri_primitive, group=group)
-        smin = jnp.min(clusters.aabb_min, 0)
-        smax = jnp.max(clusters.aabb_max, 0)
-        return ps, clusters, smin, smax
-
-    def test_closest_hit_parity(self, sphere_scene):
-        from raytracer2_tpu.ops.pallas_pairs import closest_hit_pairs
-
-        ps, clusters, smin, smax = self._ps(sphere_scene)
-        origins, dirs = _random_rays(512, seed=51, spread=5.0)
-        ref = intersect_brute_force(
-            origins, dirs, sphere_scene.tri_v0, sphere_scene.tri_edge1,
-            sphere_scene.tri_edge2, sphere_scene.tri_geometry,
-            sphere_scene.tri_primitive, 1e-3, 1e5)
-        got = closest_hit_pairs(
-            ps, clusters, sphere_scene.tri_geometry,
-            sphere_scene.tri_primitive, origins, dirs, 1e-3,
-            jnp.full((512,), 1e5), smin, smax, k_cand=64,
-            interpret=True, fallback=False)
-        np.testing.assert_array_equal(np.asarray(got.missed),
-                                      np.asarray(ref.missed))
-        m = ~np.asarray(ref.missed)
-        np.testing.assert_allclose(np.asarray(got.t)[m],
-                                   np.asarray(ref.t)[m], rtol=1e-3)
-        np.testing.assert_array_equal(
-            np.asarray(got.triangle_index)[m],
-            np.asarray(ref.triangle_index)[m])
-
-    def test_occlusion_parity(self, sphere_scene):
-        from raytracer2_tpu.ops.pallas_pairs import occluded_pairs
-
-        ps, clusters, smin, smax = self._ps(sphere_scene)
-        origins, dirs = _random_rays(512, seed=53, spread=5.0)
-        rng = np.random.default_rng(9)
-        tmax = jnp.asarray(np.where(rng.uniform(size=512) < 0.5,
-                                    rng.uniform(0.5, 6.0, 512), 1e5),
-                           jnp.float32)
-        ref = intersect_brute_force(
-            origins, dirs, sphere_scene.tri_v0, sphere_scene.tri_edge1,
-            sphere_scene.tri_edge2, sphere_scene.tri_geometry,
-            sphere_scene.tri_primitive, 1e-3, tmax)
-        got = occluded_pairs(
-            ps, clusters, origins, dirs, 1e-3, tmax, smin, smax,
-            k_cand=64, interpret=True, fallback=False)
-        np.testing.assert_array_equal(np.asarray(got),
-                                      ~np.asarray(ref.missed))
-
-    def test_dead_lanes_never_hit(self, sphere_scene):
-        from raytracer2_tpu.ops.pallas_pairs import closest_hit_pairs
-
-        ps, clusters, smin, smax = self._ps(sphere_scene)
-        origins, dirs = _random_rays(128, seed=55, spread=5.0)
-        tmax = jnp.where(jnp.arange(128) % 2 == 0, 1e5, -1.0)
-        got = closest_hit_pairs(
-            ps, clusters, sphere_scene.tri_geometry,
-            sphere_scene.tri_primitive, origins, dirs, 1e-3, tmax,
-            smin, smax, k_cand=64, interpret=True, fallback=False)
-        dead = np.arange(128) % 2 == 1
-        assert np.all(np.asarray(got.missed)[dead])
-
-    def test_overflow_fallback_exact(self, sphere_scene):
-        """k_cand=1 truncates aggressively; the bundle-engine fallback
-        must restore exact parity."""
-        from raytracer2_tpu.ops.pallas_pairs import closest_hit_pairs
-
-        ps, clusters, smin, smax = self._ps(sphere_scene)
-        origins, dirs = _random_rays(256, seed=57, spread=5.0)
-        ref = intersect_brute_force(
-            origins, dirs, sphere_scene.tri_v0, sphere_scene.tri_edge1,
-            sphere_scene.tri_edge2, sphere_scene.tri_geometry,
-            sphere_scene.tri_primitive, 1e-3, 1e5)
-        got = closest_hit_pairs(
-            ps, clusters, sphere_scene.tri_geometry,
-            sphere_scene.tri_primitive, origins, dirs, 1e-3,
-            jnp.full((256,), 1e5), smin, smax, k_cand=1,
-            interpret=True, fallback=True)
-        np.testing.assert_array_equal(np.asarray(got.missed),
-                                      np.asarray(ref.missed))
-        m = ~np.asarray(ref.missed)
-        np.testing.assert_array_equal(
-            np.asarray(got.triangle_index)[m],
-            np.asarray(ref.triangle_index)[m])
-
-
-class TestUnionMaxProbe:
-    """union_max_bundle (VERDICT r4 #4 k_cand auto-sizing): the probe's
-    max per-bundle union must equal the union computed from the raw
-    per-ray exact slab tests on the SAME sorted bundle composition, and
-    a cand2-keyed sort must keep exact hit parity."""
-
-    @pytest.fixture(scope="class")
-    def clusters(self, sphere_scene):
-        from raytracer2_tpu.ops.cluster import build_clusters
-
-        return build_clusters(sphere_scene.tri_v0, sphere_scene.tri_edge1,
-                              sphere_scene.tri_edge2, cluster_size=16)
-
-    def test_union_max_matches_manual(self, sphere_scene, clusters):
-        from raytracer2_tpu.ops import pallas_traverse as ptm
-
-        n = 512
-        rng = np.random.default_rng(11)
-        lo = np.asarray(jnp.min(clusters.aabb_min, axis=0))
-        hi = np.asarray(jnp.max(clusters.aabb_max, axis=0))
-        o = jnp.asarray(rng.uniform(lo, hi, (n, 3)).astype(np.float32))
-        v = rng.normal(size=(n, 3)).astype(np.float32)
-        d = jnp.asarray(v / np.linalg.norm(v, axis=1, keepdims=True))
-        tn = jnp.zeros((n,), jnp.float32)
-        tx = jnp.full((n,), 1e5, jnp.float32)
-        smin = jnp.min(clusters.aabb_min, axis=0)
-        smax = jnp.max(clusters.aabb_max, axis=0)
-
-        p = 128
-        got = int(ptm.union_max_bundle(clusters, o, d, tn, tx, smin, smax,
-                                       bundle_size=p, cull="exact"))
-
-        # manual: same cand0 sort, raw per-ray entries, union per bundle
-        key = ptm._cand0_sort_key(o, d, tn, tx, clusters.aabb_min,
-                                  clusters.aabb_max, smin, smax)
-        perm = jnp.argsort(key)
-        e = ptm._entry_exact(o[perm], d[perm], tn[perm], tx[perm],
-                             clusters.aabb_min, clusters.aabb_max)
-        ue = np.asarray(jnp.min(
-            e.reshape(n // p, p, -1), axis=1))
-        want = int(np.isfinite(ue).sum(axis=-1).max())
-        assert got == want
-
-    def test_cand2_sort_hit_parity(self, sphere_scene, clusters):
-        from raytracer2_tpu.ops import pallas_traverse as ptm
-
-        n = 1024
-        rng = np.random.default_rng(12)
-        lo = np.asarray(jnp.min(clusters.aabb_min, axis=0))
-        hi = np.asarray(jnp.max(clusters.aabb_max, axis=0))
-        o = jnp.asarray(rng.uniform(lo, hi, (n, 3)).astype(np.float32))
-        v = rng.normal(size=(n, 3)).astype(np.float32)
-        d = jnp.asarray(v / np.linalg.norm(v, axis=1, keepdims=True))
-        tn = jnp.zeros((n,), jnp.float32)
-        tx = jnp.full((n,), 1e5, jnp.float32)
-        smin = jnp.min(clusters.aabb_min, axis=0)
-        smax = jnp.max(clusters.aabb_max, axis=0)
-
-        scene = sphere_scene
-        kw = dict(interpret=jnp.zeros(0).devices().pop().platform == "cpu")
-        base = ptm.closest_hit_bundle_pallas(
-            clusters, scene.tri_geometry, scene.tri_primitive,
-            o, d, tn, tx, smin, smax, **kw)
-        c2 = ptm.closest_hit_bundle_pallas(
-            clusters, scene.tri_geometry, scene.tri_primitive,
-            o, d, tn, tx, smin, smax, sort_key="cand2", **kw)
-        assert np.array_equal(np.asarray(base.triangle_index),
-                              np.asarray(c2.triangle_index))
-        np.testing.assert_allclose(np.asarray(base.t), np.asarray(c2.t),
-                                   rtol=1e-6)

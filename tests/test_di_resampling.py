@@ -1,4 +1,4 @@
-"""DI temporal/spatial resampling: executable-path tests (VERDICT r3 #4).
+"""DI temporal/spatial resampling: executable-path tests .
 
 The reference compiles RTXDI_DITemporalResampling / DISpatialResampling /
 DISpatioTemporalResampling into its pipelines but comments the call out of
@@ -23,13 +23,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from raytracer2_tpu.models import procedural as proc
-from raytracer2_tpu.params import default_gconst
-from raytracer2_tpu.render.frame import (
+from raytracer2.models import procedural as proc
+from raytracer2.params import default_gconst
+from raytracer2.render.frame import (
     create_renderer, init_frame_state, render_frame)
-from raytracer2_tpu.scene import gltf
-from raytracer2_tpu.scene.camera import default_camera
-from raytracer2_tpu.scene.scene import build_scene
+from raytracer2.scene import gltf
+from raytracer2.scene.camera import default_camera
+from raytracer2.scene.scene import build_scene
 
 W = H = 32
 

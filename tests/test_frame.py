@@ -5,13 +5,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from raytracer2_tpu.models import procedural as proc
-from raytracer2_tpu.params import default_gconst
-from raytracer2_tpu.render.frame import (
+from raytracer2.models import procedural as proc
+from raytracer2.params import default_gconst
+from raytracer2.render.frame import (
     create_renderer, init_frame_state, render_frame)
-from raytracer2_tpu.scene import gltf
-from raytracer2_tpu.scene.camera import default_camera
-from raytracer2_tpu.scene.scene import build_scene
+from raytracer2.scene import gltf
+from raytracer2.scene.camera import default_camera
+from raytracer2.scene.scene import build_scene
 
 W = H = 24
 
@@ -166,7 +166,7 @@ def test_shaped_point_light_cone():
     """Spot shaping: a narrow cone pointed away from the surface kills the
     sample's radiance; pointed toward it, radiance survives
     (LightShaping.glsl:56-75 smoothstep falloff)."""
-    from raytracer2_tpu.lights import polymorphic as pl
+    from raytracer2.lights import polymorphic as pl
 
     pos = jnp.asarray([[0.0, 5.0, 0.0]])
     flux = jnp.asarray([[10.0, 10.0, 10.0]])
@@ -253,9 +253,9 @@ def test_zorder_shadow_visibility_matches_direct(setup):
     Z-curve reorder + the tracer's presorted path (app_bridge.py
     get_conservative_visibility). The permutation + inverse must be
     transparent: results identical to tracing the rays in launch order."""
-    from raytracer2_tpu.render.app_bridge import make_bridge
-    from raytracer2_tpu.render.shading import setup_visibility_ray
-    from raytracer2_tpu.render.surface import empty_surface
+    from raytracer2.render.app_bridge import make_bridge
+    from raytracer2.render.shading import setup_visibility_ray
+    from raytracer2.render.surface import empty_surface
 
     renderer, g = setup
     n = 64  # 64*64 = 4096: the smallest grid that takes the Z-reorder path
@@ -291,14 +291,14 @@ def test_row_banded_secondary_shade_matches_whole_image(setup_scene=None):
     import numpy as np
     import jax.numpy as jnp
 
-    from raytracer2_tpu.models import procedural as proc
-    from raytracer2_tpu.params import default_gconst
-    from raytracer2_tpu.render import gi_passes
-    from raytracer2_tpu.render.frame import (
+    from raytracer2.models import procedural as proc
+    from raytracer2.params import default_gconst
+    from raytracer2.render import gi_passes
+    from raytracer2.render.frame import (
         create_renderer, init_frame_state, render_frame)
-    from raytracer2_tpu.scene import gltf
-    from raytracer2_tpu.scene.camera import default_camera
-    from raytracer2_tpu.scene.scene import build_scene
+    from raytracer2.scene import gltf
+    from raytracer2.scene.camera import default_camera
+    from raytracer2.scene.scene import build_scene
 
     with tempfile.TemporaryDirectory() as d:
         p = Path(d) / "c.glb"

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from raytracer2_tpu.models import procedural as proc
-from raytracer2_tpu.scene import gltf
-from raytracer2_tpu.scene.scene import build_scene
+from raytracer2.models import procedural as proc
+from raytracer2.scene import gltf
+from raytracer2.scene.scene import build_scene
 
 
 @pytest.fixture(scope="module")
@@ -211,7 +211,7 @@ def test_sampler_modes_affect_sampling(tmp_path):
     """Nearest/clamp/mirror actually change sampled texels."""
     import jax.numpy as jnp
 
-    from raytracer2_tpu.scene.scene import sample_texture_bilinear
+    from raytracer2.scene.scene import sample_texture_bilinear
 
     # 1x4 gradient texture
     tex = np.zeros((1, 1, 4, 4), np.float32)

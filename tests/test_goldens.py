@@ -1,10 +1,11 @@
 """Golden-image regression: each pass's output on a tiny deterministic
-scene, compared against checked-in snapshots (VERDICT r1 #4: 'a silent
+scene, compared against checked-in snapshots ('a silent
 estimator-bias regression would pass CI' without these).
 
 Goldens are generated on the CPU backend (the CI platform) by running
 this file as a script:  python tests/test_goldens.py --regen
-Tolerances absorb cross-libm fp noise, not estimator changes.
+Tolerances absorb cross-libm fp noise, not estimator changes; the same
+scene runs on the GPU against these files in chip_smoke.py.
 """
 
 from pathlib import Path
@@ -14,13 +15,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from raytracer2_tpu.models import procedural as proc
-from raytracer2_tpu.params import default_gconst
-from raytracer2_tpu.render.frame import (
+from raytracer2.models import procedural as proc
+from raytracer2.params import default_gconst
+from raytracer2.render.frame import (
     create_renderer, init_frame_state, render_frame)
-from raytracer2_tpu.scene import gltf
-from raytracer2_tpu.scene.camera import default_camera
-from raytracer2_tpu.scene.scene import build_scene
+from raytracer2.scene import gltf
+from raytracer2.scene.camera import default_camera
+from raytracer2.scene.scene import build_scene
 
 W = H = 16
 GOLDEN_DIR = Path(__file__).parent / "goldens"
@@ -34,7 +35,10 @@ def _setup():
         proc.write_glb(p, proc.cornell_box_glb(light_emission=2.0))
         scene = build_scene(gltf.load_file(p))
     renderer = create_renderer(scene, W, H)
-    cam = default_camera(window_size=(W, H), position=(0, 0, -12),
+    # slightly off the box's axis: from the centre, six pixel rays pass
+    # exactly through mesh edges, where hit or miss is decided by the last
+    # bit of rounding, which differs between CPU and GPU code generation
+    cam = default_camera(window_size=(W, H), position=(0.031, -0.017, -12),
                          direction=(0, 0, -1))
     g = default_gconst(cam.planar_view_constants(),
                        renderer.scene_lights.num_local_lights,

@@ -5,13 +5,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from raytracer2_tpu.lights import pdf_texture, polymorphic as pl
-from raytracer2_tpu.lights.prepare import prepare_lights
-from raytracer2_tpu.models import procedural as proc
-from raytracer2_tpu.params import RTXDI_INVALID_LIGHT_INDEX
-from raytracer2_tpu.scene import gltf
-from raytracer2_tpu.scene.scene import build_scene
-from raytracer2_tpu.utils import rng as rtrng
+from raytracer2.lights import pdf_texture, polymorphic as pl
+from raytracer2.lights.prepare import prepare_lights
+from raytracer2.models import procedural as proc
+from raytracer2.params import RTXDI_INVALID_LIGHT_INDEX
+from raytracer2.scene import gltf
+from raytracer2.scene.scene import build_scene
+from raytracer2.utils import rng as rtrng
 
 
 class TestLightColorPacking:
@@ -77,7 +77,7 @@ class TestTriangleLights:
         base, e1, e2, rad = self._tri()
         info = pl.store_triangle_lights(base, e1, e2, rad)
         # power = area * pi * luminance (PolymorphicLight.glsl:297-300)
-        from raytracer2_tpu.utils.brdf import luminance
+        from raytracer2.utils.brdf import luminance
 
         expected = 2.0 * np.pi * float(luminance(rad)[0])
         assert abs(float(pl.get_power(info)[0]) - expected) / expected < 0.05

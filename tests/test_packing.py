@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from raytracer2_tpu.utils import packing as pk
+from raytracer2.utils import packing as pk
 
 
 def _rand_dirs(n, seed=0):

@@ -13,8 +13,8 @@ import pytest
 from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
-from raytracer2_tpu.parallel.halo import exchange_row_halos, gather_rows
-from raytracer2_tpu.parallel.mesh import ROW_AXIS, make_mesh
+from raytracer2.parallel.halo import exchange_row_halos, gather_rows
+from raytracer2.parallel.mesh import ROW_AXIS, make_mesh
 
 
 @pytest.fixture(scope="module")
@@ -91,15 +91,15 @@ class TestExplicitHaloFrame:
     high-variance 1-candidate default flips winners on one-ulp t ties)."""
 
     def test_matches_single_device(self, tmp_path):
-        from raytracer2_tpu.models import procedural as proc
-        from raytracer2_tpu.params import default_gconst
-        from raytracer2_tpu.render.frame import (
+        from raytracer2.models import procedural as proc
+        from raytracer2.params import default_gconst
+        from raytracer2.render.frame import (
             create_renderer, init_frame_state, render_frame)
-        from raytracer2_tpu.parallel.mesh import (
+        from raytracer2.parallel.mesh import (
             make_mesh, make_sharded_render_fn, shard_frame_state)
-        from raytracer2_tpu.scene import gltf
-        from raytracer2_tpu.scene.camera import default_camera
-        from raytracer2_tpu.scene.scene import build_scene
+        from raytracer2.scene import gltf
+        from raytracer2.scene.camera import default_camera
+        from raytracer2.scene.scene import build_scene
 
         W = H = 32
         p = tmp_path / "c.glb"

@@ -5,13 +5,13 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from raytracer2_tpu.models import procedural as proc
-from raytracer2_tpu.params import GConst, default_gconst
-from raytracer2_tpu.render.postprocess import PostProcessInputs, post_process, tonemap
-from raytracer2_tpu.render.reference import render_reference
-from raytracer2_tpu.scene import gltf
-from raytracer2_tpu.scene.camera import default_camera
-from raytracer2_tpu.scene.scene import build_scene
+from raytracer2.models import procedural as proc
+from raytracer2.params import GConst, default_gconst
+from raytracer2.render.postprocess import PostProcessInputs, post_process, tonemap
+from raytracer2.render.reference import render_reference
+from raytracer2.scene import gltf
+from raytracer2.scene.camera import default_camera
+from raytracer2.scene.scene import build_scene
 
 W = H = 48
 
@@ -130,7 +130,7 @@ def test_tonemap_monotone_gray():
 
 
 def test_dead_lane_compaction_bit_identical():
-    """tf_compact (VERDICT r4 #7): on a miss-heavy scene (sphere grid
+    """tf_compact: on a miss-heavy scene (sphere grid
     against sky) the compacted bounce batches must produce a bit-identical
     image — tracing is per-ray deterministic and RNG never sees lane
     positions."""
@@ -140,13 +140,13 @@ def test_dead_lane_compaction_bit_identical():
     import numpy as np
     import jax.numpy as jnp
 
-    from raytracer2_tpu.models import procedural as proc
-    from raytracer2_tpu.params import default_gconst
-    from raytracer2_tpu.render.frame import create_renderer
-    from raytracer2_tpu.render.reference import render_reference
-    from raytracer2_tpu.scene import gltf
-    from raytracer2_tpu.scene.camera import default_camera
-    from raytracer2_tpu.scene.scene import build_scene
+    from raytracer2.models import procedural as proc
+    from raytracer2.params import default_gconst
+    from raytracer2.render.frame import create_renderer
+    from raytracer2.render.reference import render_reference
+    from raytracer2.scene import gltf
+    from raytracer2.scene.camera import default_camera
+    from raytracer2.scene.scene import build_scene
 
     with tempfile.TemporaryDirectory() as d:
         p = Path(d) / "grid.glb"

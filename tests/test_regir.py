@@ -4,10 +4,10 @@ PresamplingFunctions.hlsli:168-249)."""
 import numpy as np
 import jax.numpy as jnp
 
-from raytracer2_tpu.lights.polymorphic import store_triangle_lights
-from raytracer2_tpu.params import LightBufferRegion
-from raytracer2_tpu.restir import regir
-from raytracer2_tpu.utils import rng as rtrng
+from raytracer2.lights.polymorphic import store_triangle_lights
+from raytracer2.params import LightBufferRegion
+from raytracer2.restir import regir
+from raytracer2.utils import rng as rtrng
 
 
 PARAMS = regir.ReGIRGridParameters(

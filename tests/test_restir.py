@@ -4,10 +4,10 @@ pack/unpack roundtrips, helpers (SURVEY.md §4 test pyramid)."""
 import numpy as np
 import jax.numpy as jnp
 
-from raytracer2_tpu.restir import di_reservoir as dr
-from raytracer2_tpu.restir import gi_reservoir as gr
-from raytracer2_tpu.restir import helpers
-from raytracer2_tpu.restir.gi_resampling import (
+from raytracer2.restir import di_reservoir as dr
+from raytracer2.restir import gi_reservoir as gr
+from raytracer2.restir import helpers
+from raytracer2.restir.gi_resampling import (
     calculate_jacobian, combine_gi_reservoirs, finalize_gi_resampling)
 
 
@@ -200,7 +200,7 @@ class TestHelpers:
         np.testing.assert_array_equal(np.asarray(by), np.asarray(py))
 
     def test_reservoir_pointer_block_linear(self):
-        from raytracer2_tpu.params import calculate_reservoir_buffer_parameters
+        from raytracer2.params import calculate_reservoir_buffer_parameters
 
         params = calculate_reservoir_buffer_parameters(64, 48)
         # walk a few positions; pointers must be unique and in range
@@ -239,8 +239,8 @@ class TestDIBoilingFilter:
         """DI boiling filter (DIResamplingFunctions.hlsli:101-116): a
         reservoir with weightSum far above its 16x16 tile average is
         discarded; normal reservoirs survive."""
-        from raytracer2_tpu.restir.di_resampling import di_boiling_filter
-        from raytracer2_tpu.restir.di_reservoir import empty_di_reservoir
+        from raytracer2.restir.di_resampling import di_boiling_filter
+        from raytracer2.restir.di_reservoir import empty_di_reservoir
 
         res = empty_di_reservoir((16, 16))
         w = jnp.full((16, 16), 1.0).at[3, 5].set(1e5)
@@ -258,13 +258,13 @@ class TestDIBoilingFilter:
 
         import numpy as np
 
-        from raytracer2_tpu.models import procedural as proc
-        from raytracer2_tpu.params import default_gconst
-        from raytracer2_tpu.render.frame import (
+        from raytracer2.models import procedural as proc
+        from raytracer2.params import default_gconst
+        from raytracer2.render.frame import (
             create_renderer, init_frame_state, render_frame)
-        from raytracer2_tpu.scene import gltf
-        from raytracer2_tpu.scene.camera import default_camera
-        from raytracer2_tpu.scene.scene import build_scene
+        from raytracer2.scene import gltf
+        from raytracer2.scene.camera import default_camera
+        from raytracer2.scene.scene import build_scene
 
         p = tmp_path / "c.glb"
         proc.write_glb(p, proc.cornell_box_glb(light_emission=2.0))

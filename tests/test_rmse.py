@@ -1,7 +1,7 @@
 """Image-error integration tests: ReSTIR output vs the brute-force oracle.
 
 BASELINE.md's strict RMSE <= 1e-2 gate applies to converged high-spp renders
-on the benchmark ladder (TPU-scale); these CPU-sized tests check the two
+on the benchmark ladder (device scale); these CPU-sized tests check the two
 properties that gate implies: accumulation CONVERGES toward the oracle
 (error shrinks with frames) and the estimators agree on ENERGY (no bias).
 """
@@ -10,14 +10,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from raytracer2_tpu.models import procedural as proc
-from raytracer2_tpu.params import default_gconst
-from raytracer2_tpu.render.frame import (
+from raytracer2.models import procedural as proc
+from raytracer2.params import default_gconst
+from raytracer2.render.frame import (
     create_renderer, init_frame_state, render_frame)
-from raytracer2_tpu.render.reference import render_reference
-from raytracer2_tpu.scene import gltf
-from raytracer2_tpu.scene.camera import default_camera
-from raytracer2_tpu.scene.scene import build_scene
+from raytracer2.render.reference import render_reference
+from raytracer2.scene import gltf
+from raytracer2.scene.camera import default_camera
+from raytracer2.scene.scene import build_scene
 
 W = H = 32
 
@@ -120,7 +120,7 @@ def _oracle_display(scene, renderer, view, bounces, frames=60, spp=16):
     """Converged front-facing-emission oracle, through the display path."""
     import jax
 
-    from raytracer2_tpu.render.postprocess import (
+    from raytracer2.render.postprocess import (
         PostProcessInputs, post_process)
 
     g1 = default_gconst(view, renderer.scene_lights.num_local_lights,
@@ -152,7 +152,7 @@ def test_di_display_matches_oracle_strict(setup):
 
     import jax
 
-    from raytracer2_tpu.render.frame import render_frame as rf
+    from raytracer2.render.frame import render_frame as rf
 
     scene, renderer, view = setup
     oracle = _oracle_display(scene, renderer, view, bounces=2)
@@ -199,10 +199,10 @@ def test_di_gi_display_matches_oracle(setup):
 
     import jax
 
-    from raytracer2_tpu.render.frame import render_frame as rf
-    from raytracer2_tpu.render.postprocess import (
+    from raytracer2.render.frame import render_frame as rf
+    from raytracer2.render.postprocess import (
         PostProcessInputs, post_process)
-    from raytracer2_tpu.utils import packing as pk
+    from raytracer2.utils import packing as pk
 
     scene, renderer, view = setup
     oracle = _oracle_display(scene, renderer, view, bounces=3)

@@ -4,7 +4,7 @@ GLSL murmur3 sampler (ref: Helpers.glsl:13-64, RtxdiMath.hlsli:69-79)."""
 import numpy as np
 import jax.numpy as jnp
 
-from raytracer2_tpu.utils import rng as rtrng
+from raytracer2.utils import rng as rtrng
 
 M32 = 0xFFFFFFFF
 
@@ -79,7 +79,7 @@ def test_uniform_bit_construction_matches_glsl():
 
 
 def test_init_random_sampler_zcurve_seed():
-    from raytracer2_tpu.utils.packing import zcurve_to_linear
+    from raytracer2.utils.packing import zcurve_to_linear
 
     px = jnp.asarray([5], jnp.uint32)
     py = jnp.asarray([9], jnp.uint32)

@@ -1,34 +1,25 @@
-"""Fast-tier tracer-flag parity matrix (VERDICT r3 #7).
+"""Fast-tier traversal parity: every `--backend` engine vs the brute-force
+oracle.
 
-One tiny scene (a ~100-tri sphere, cluster_size=4) x 96 rays, every
-tracer config flag checked for exact-hit parity against the brute-force
-oracle in interpret mode. This keeps flag coverage in `pytest -m "not
-slow"`; the full-size parity classes in tests/test_bvh.py stay the slow
-round gate.
+One tiny scene (a ~100-tri sphere, cluster_size=4 so the cluster engines
+walk several clusters) x 96 random rays, closest-hit and any-hit, through
+make_tracers exactly as the renderer builds them. The full-size parity
+classes in tests/test_bvh.py stay in the slow gate.
 """
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from raytracer2_tpu.models import procedural as proc
-from raytracer2_tpu.ops.intersect import intersect_brute_force
-from raytracer2_tpu.scene import gltf
-from raytracer2_tpu.scene.scene import build_scene
+from raytracer2.models import procedural as proc
+from raytracer2.ops.intersect import (
+    intersect_brute_force, occluded_brute_force)
+from raytracer2.render.app_bridge import BACKENDS, make_tracers
+from raytracer2.scene import gltf
+from raytracer2.scene.scene import build_scene
 
 N_RAYS = 96
-
-CONFIGS = {
-    "exact": dict(cull="exact"),
-    "interval": dict(cull="interval"),
-    "sc": dict(cull="sc"),
-    "octz": dict(sort_key="octz"),
-    "hier_key": dict(sort_key="hier"),
-    "mm": dict(mm=True),
-    "lean": dict(lean=True),
-    "t_cap": dict(t_cap=True),
-    "cull_kernel": dict(cull_kernel=True),
-}
+ENGINES = [b for b in BACKENDS if b not in ("auto", "brute")]
 
 
 @pytest.fixture(scope="module")
@@ -37,52 +28,42 @@ def tiny(tmp_path_factory):
     proc.write_glb(p, proc.sphere_grid_glb(n=1, lat=6, lon=8))
     scene = build_scene(gltf.load_file(p))
 
-    from raytracer2_tpu.ops.cluster import build_clusters
-
-    clusters = build_clusters(scene.tri_v0, scene.tri_edge1,
-                              scene.tri_edge2, cluster_size=4)
-    smin = jnp.min(clusters.aabb_min, 0)
-    smax = jnp.max(clusters.aabb_max, 0)
-
     rng = np.random.default_rng(77)
     origins = jnp.asarray(rng.uniform(-4, 4, (N_RAYS, 3)).astype(np.float32))
     d = rng.normal(size=(N_RAYS, 3)).astype(np.float32)
     dirs = jnp.asarray(d / np.linalg.norm(d, axis=-1, keepdims=True))
+    # half the segments stop short, so any-hit sees both outcomes
+    t_max = jnp.asarray(np.where(np.arange(N_RAYS) % 2, 1e5, 3.0),
+                        jnp.float32)
+    return scene, origins, dirs, t_max
+
+
+@pytest.mark.parametrize("backend", ENGINES)
+def test_closest_hit_parity(tiny, backend):
+    scene, origins, dirs, t_max = tiny
     ref = intersect_brute_force(
         origins, dirs, scene.tri_v0, scene.tri_edge1, scene.tri_edge2,
-        scene.tri_geometry, scene.tri_primitive, 1e-3, 1e5)
-    return scene, clusters, smin, smax, origins, dirs, ref
-
-
-@pytest.mark.parametrize("name", sorted(CONFIGS))
-def test_flag_parity(tiny, name):
-    from raytracer2_tpu.ops.pallas_traverse import closest_hit_bundle_pallas
-
-    scene, clusters, smin, smax, origins, dirs, ref = tiny
-    got = closest_hit_bundle_pallas(
-        clusters, scene.tri_geometry, scene.tri_primitive,
-        origins, dirs, 1e-3, jnp.full((N_RAYS,), 1e5), smin, smax,
-        bundle_size=32, interpret=True, **CONFIGS[name])
+        scene.tri_geometry, scene.tri_primitive, 1e-3, t_max)
+    tracers = make_tracers(scene, backend=backend, cluster_size=4)
+    got = tracers.closest_hit(origins, dirs, jnp.full((N_RAYS,), 1e-3),
+                              t_max)
     np.testing.assert_array_equal(np.asarray(got.missed),
                                   np.asarray(ref.missed))
     m = ~np.asarray(ref.missed)
+    assert m.any()
     np.testing.assert_allclose(np.asarray(got.t)[m],
-                               np.asarray(ref.t)[m], rtol=1e-3)
+                               np.asarray(ref.t)[m], rtol=1e-4)
+    np.testing.assert_array_equal(np.asarray(got.triangle_index)[m],
+                                  np.asarray(ref.triangle_index)[m])
 
 
-def test_pairs_backend_parity(tiny):
-    from raytracer2_tpu.ops.pallas_pairs import (
-        build_pair_scene, closest_hit_pairs)
-
-    scene, clusters, smin, smax, origins, dirs, ref = tiny
-    ps = build_pair_scene(clusters, scene.tri_geometry,
-                          scene.tri_primitive, group=4)
-    got = closest_hit_pairs(
-        ps, clusters, scene.tri_geometry, scene.tri_primitive,
-        origins, dirs, 1e-3, jnp.full((N_RAYS,), 1e5), smin, smax,
-        k_cand=32, interpret=True, fallback=False)
-    np.testing.assert_array_equal(np.asarray(got.missed),
-                                  np.asarray(ref.missed))
-    m = ~np.asarray(ref.missed)
-    np.testing.assert_allclose(np.asarray(got.t)[m],
-                               np.asarray(ref.t)[m], rtol=1e-3)
+@pytest.mark.parametrize("backend", ENGINES)
+def test_occlusion_parity(tiny, backend):
+    scene, origins, dirs, t_max = tiny
+    ref = occluded_brute_force(origins, dirs, scene.tri_v0, scene.tri_edge1,
+                               scene.tri_edge2, 1e-3, t_max)
+    tracers = make_tracers(scene, backend=backend, cluster_size=4)
+    got = tracers.occluded(origins, dirs, jnp.full((N_RAYS,), 1e-3), t_max)
+    ref = np.asarray(ref)
+    assert ref.any() and not ref.all()
+    np.testing.assert_array_equal(np.asarray(got), ref)

@@ -1,13 +1,13 @@
-"""Interactive viewer logic (raytracer2_tpu/viewer.py): the pure
+"""Interactive viewer logic (raytracer2/viewer.py): the pure
 helpers that the TTY loop delegates to — key folding into the Camera
 Controls port (camera.rs:45-97 / main.rs key map) and the half-block
 frame encoding."""
 
 import numpy as np
 
-from raytracer2_tpu.params import default_gconst
-from raytracer2_tpu.scene.camera import default_camera
-from raytracer2_tpu.viewer import apply_keys, image_to_ansi
+from raytracer2.params import default_gconst
+from raytracer2.scene.camera import default_camera
+from raytracer2.viewer import apply_keys, image_to_ansi
 
 
 def _setup():
