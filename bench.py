@@ -232,10 +232,14 @@ def run_pipeline(width: int, height: int, frames: int, scene_kind: str,
 
 
 def ray_classes(scene, trace_fn, view, px, py, seed: int = 0) -> dict:
-    """The frame's three traced ray classes for pixels (px, py): primary
-    camera rays, cosine BRDF bounces off their closest hits (random points
-    in the scene box where the camera ray missed), and shadow segments
-    from the same origins to uniform points on random scene triangles.
+    """Synthetic rays of three kinds for pixels (px, py), for checking an
+    engine against the brute-force oracle (chip_smoke.py): primary camera
+    rays, cosine BRDF bounces off their closest hits (random points in the
+    scene box where the camera ray missed), and shadow segments from the
+    same origins to uniform points on random scene triangles. The segments
+    are longer and less coherent than the frame's light-sample shadow rays,
+    so they stress the any-hit query but say nothing of its cost in a
+    frame (capture_frame_rays has the frame's own batches).
     Returns {class: (origins, directions, t_min, t_max)} device arrays."""
     import jax
     import jax.numpy as jnp
@@ -289,37 +293,119 @@ def ray_classes(scene, trace_fn, view, px, py, seed: int = 0) -> dict:
     }
 
 
-def run_trace_classes(width: int = 1920, height: int = 1080,
-                      scene_kind: str = "ladder", backend: str = "auto",
-                      reps: int = 5) -> dict:
-    """The traversal engine alone on one full frame's worth of each ray
-    class (ray_classes over every pixel, in the screen-tile order the
-    G-buffer pass traces): median ms per batch and Mrays/s. Primary and
-    BRDF rays are closest-hit queries, shadow rays any-hit."""
+def flagship_gconst(renderer, cam):
+    """The flagship frame: DI + GI with temporal and spatial resampling."""
+    from raytracer2.params import default_gconst
+
+    return default_gconst(
+        cam.planar_view_constants(), renderer.scene_lights.num_local_lights,
+        enable_restir_di=1, enable_restir_gi=1,
+        enable_temporal_resampling=1, enable_spatial_resampling=1)
+
+
+def capture_frame_rays(renderer, g_const, state) -> list:
+    """Every traversal call one render_frame traces, in call order, as
+    (site, query, (origins, directions, t_min, t_max)) host arrays. site
+    is the render or restir function that asked for the rays; query is
+    "closest" or "occluded". The frame runs once under jit with each
+    engine call copying its inputs to the host (jax.debug.callback), so a
+    call inside a lax.map (row bands at 4K) records once per band."""
+    import inspect
+
     import numpy as np
 
     import jax
     import jax.numpy as jnp
 
-    from raytracer2.render import rays as raysmod
+    from raytracer2.render.app_bridge import Tracers
+    from raytracer2.render.frame import render_frame
+
+    calls: list = []
+
+    def caller() -> str:
+        for f in inspect.stack()[2:]:
+            path = Path(f.filename)
+            if "raytracer2" in path.parts and path.name != "app_bridge.py":
+                return f"{path.stem}.{f.function}"
+        return "?"
+
+    def record(fn, query):
+        def traced(o, d, tmin, tmax):
+            site = caller()
+            n = o.shape[:1]
+
+            def keep(*rays):
+                calls.append((site, query, tuple(np.asarray(a)
+                                                 for a in rays)))
+
+            jax.debug.callback(keep, o, d, jnp.broadcast_to(tmin, n),
+                               jnp.broadcast_to(tmax, n))
+            return fn(o, d, tmin, tmax)
+        return traced
+
+    tracers = renderer.tracers
+    recording = renderer._replace(tracers=Tracers(
+        closest_hit=record(tracers.closest_hit, "closest"),
+        occluded=record(tracers.occluded, "occluded")))
+    out = jax.jit(lambda g, s: render_frame(recording, g, s))(g_const, state)
+    jax.block_until_ready(out)
+    jax.effects_barrier()
+    return calls
+
+
+def with_final_visibility(g):
+    """g with the DI and GI final-shading visibility rays on (off at the
+    reference's defaults, so the flagship frame traces no shadow rays)."""
+    import dataclasses
+
+    di, gi = g.restir_di, g.restir_gi
+    return g.replace(
+        restir_di=dataclasses.replace(di, shading_params=dataclasses.replace(
+            di.shading_params, enable_final_visibility=1)),
+        restir_gi=dataclasses.replace(
+            gi, final_shading_params=dataclasses.replace(
+                gi.final_shading_params, enable_final_visibility=1)))
+
+
+def run_trace_frame(width: int = 1920, height: int = 1080,
+                    scene_kind: str = "ladder", backend: str = "auto",
+                    visibility: bool = False, reps: int = 5) -> dict:
+    """The traversal engine alone on the batches one flagship frame
+    traces (capture_frame_rays on the second frame, after one frame of
+    temporal history), next to that frame's own time. visibility=True
+    runs the flagship frame with_final_visibility. Each batch is timed as
+    the frame calls it: median ms over reps, one engine call per batch.
+    Classes: primary (the G-buffer pass), brdf (other closest-hit
+    queries), shadow (any-hit queries)."""
+    import numpy as np
+
+    import jax
+    import jax.numpy as jnp
+
+    from raytracer2.render.frame import init_frame_state, render_frame
 
     scene, renderer, cam = build_case(scene_kind, width, height, backend)
-    tiles = raysmod.tile_shape(width, height)
-    if tiles is not None:
-        order = raysmod.tile_permutation(width, height, tiles[1], tiles[0])
-    else:
-        order = raysmod.zorder_permutation(width, height)[0]
-    px = jnp.asarray((order % width).astype(np.int32))
-    py = jnp.asarray((order // width).astype(np.int32))
-    tracers = renderer.tracers
-    classes = ray_classes(scene, tracers.closest_hit,
-                          cam.planar_view_constants(), px, py)
-    d = jax.devices()[0]
-    out = {"scene": scene_kind, "triangles": scene.num_triangles,
-           "resolution": f"{width}x{height}", "backend": backend,
-           "platform": d.platform, "device_kind": d.device_kind}
-    for cls, rays in classes.items():
-        fn = tracers.occluded if cls == "shadow" else tracers.closest_hit
+    g = flagship_gconst(renderer, cam)
+    if visibility:
+        g = with_final_visibility(g)
+    frame = jax.jit(lambda gc, s: render_frame(renderer, gc, s))
+    state, img = frame(g, init_frame_state(width, height))
+    jax.block_until_ready(img)
+    ts = []
+    for i in range(reps):
+        t0 = time.perf_counter()
+        jax.block_until_ready(frame(g.replace(frame=jnp.uint32(1)), state))
+        ts.append(time.perf_counter() - t0)
+    frame_ms = float(np.median(ts)) * 1e3
+
+    calls = capture_frame_rays(renderer, g.replace(frame=jnp.uint32(1)),
+                               state)
+    engines = {"closest": jax.jit(renderer.tracers.closest_hit),
+               "occluded": jax.jit(renderer.tracers.occluded)}
+    batches, classes = [], {}
+    for site, query, host in calls:
+        rays = tuple(jnp.asarray(a) for a in host)
+        fn = engines[query]
         jax.block_until_ready(fn(*rays))  # compile + warm up
         ts = []
         for _ in range(reps):
@@ -327,10 +413,26 @@ def run_trace_classes(width: int = 1920, height: int = 1080,
             jax.block_until_ready(fn(*rays))
             ts.append(time.perf_counter() - t0)
         ms = float(np.median(ts)) * 1e3
-        out[cls] = {"ms": round(ms, 3), "rays": int(px.shape[0]),
-                    "mrays": round(px.shape[0] / ms / 1e3, 3),
-                    "query": "occluded" if cls == "shadow" else "closest"}
-    return out
+        n = int(host[0].shape[0])
+        live = int(np.sum(host[3] > host[2]))
+        cls = ("shadow" if query == "occluded" else
+               "primary" if site.startswith("gbuffer.") else "brdf")
+        batches.append({"site": site, "query": query, "class": cls,
+                        "rays": n, "live": live, "ms": ms,
+                        "mrays": n / ms / 1e3})
+        c = classes.setdefault(cls, {"batches": 0, "rays": 0, "ms": 0.0})
+        c["batches"] += 1
+        c["rays"] += n
+        c["ms"] += ms
+    traversal_ms = sum(b["ms"] for b in batches)
+    d = jax.devices()[0]
+    return {"scene": scene_kind, "triangles": scene.num_triangles,
+            "resolution": f"{width}x{height}", "backend": backend,
+            "final_visibility": visibility,
+            "platform": d.platform, "device_kind": d.device_kind,
+            "frame_ms": frame_ms, "traversal_ms": traversal_ms,
+            "traversal_share": traversal_ms / frame_ms,
+            "classes": classes, "batches": batches}
 
 
 def run_flythrough(width: int = 3840, height: int = 2160,
@@ -988,10 +1090,15 @@ def main():
                 per_pass=(args.per_pass if args.per_pass is not None
                           else args.mode == "pipeline")))),
             ("rmse", True, lambda: attempt(run_rmse, backend=args.backend)),
-            # the traversal engine alone on the frame's three ray classes
+            # the traversal engine alone on the flagship frame's batches,
+            # then with final visibility, whose any-hit rays it lacks
             ("trace", False, lambda: attempt(
-                run_trace_classes, width=W, height=H,
+                run_trace_frame, width=W, height=H,
                 scene_kind=args.scene or "ladder", backend=args.backend)),
+            ("trace_visibility", False, lambda: attempt(
+                run_trace_frame, width=W, height=H,
+                scene_kind=args.scene or "ladder", backend=args.backend,
+                visibility=True)),
             # 1/2/4/8-virtual-CPU-device scaling curve (CPU milliseconds)
             ("scaling", False, lambda: attempt(run_scaling)),
             # BASELINE config 5: 4K fly-through, DI+GI + accumulation
@@ -1034,7 +1141,7 @@ def main():
             "pipeline": ("pipeline", "pipeline_checkerboard",
                          "pipeline_di"),
             "rmse": ("rmse", "rmse_gi"), "scaling": ("scaling",),
-            "trace": ("trace",),
+            "trace": ("trace", "trace_visibility"),
             "duck": ("duck",),
             "emissive": ("emissive",), "flythrough": ("flythrough_4k",),
         }
@@ -1069,9 +1176,8 @@ def main():
             headline = ("flythrough_4k_p50_frame_ms",
                         detail["flythrough_4k"].get("p50_ms", 0.0))
         elif args.mode == "trace":
-            headline = ("trace_primary_mrays_per_sec",
-                        detail["trace"].get("primary", {}).get(
-                            "mrays", 0.0))
+            headline = ("trace_frame_traversal_ms",
+                        detail["trace"].get("traversal_ms", 0.0))
         elif args.mode == "rmse":
             headline = ("restir_di_display_rmse_vs_oracle",
                         detail["rmse"].get("rmse", 1.0))

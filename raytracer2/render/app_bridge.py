@@ -76,8 +76,6 @@ def make_tracers(scene: Scene, bvh: BVH | None = None,
       (ops/traverse_scatter.py); coherence-independent throughput
     - "lbvh": per-ray stack traversal over the device LBVH
     - "brute": all-pairs oracle
-    Every closure also takes a `presorted` hint (rays already arrive in
-    screen-tile order); the engines here do not need it.
     """
     if not use_bvh or scene.num_triangles < 2:
         backend = "brute"
@@ -101,12 +99,12 @@ def make_tracers(scene: Scene, bvh: BVH | None = None,
                                  // sc.num_superclusters
                                  // tsm.PAIR_BLOCK * tsm.PAIR_BLOCK))
 
-        def closest(o, d, tmin, tmax, presorted=False):
+        def closest(o, d, tmin, tmax):
             return tsm.closest_hit_scatter(
                 sc, scene.tri_geometry, scene.tri_primitive,
                 o, d, tmin, tmax, **cap)
 
-        def occl(o, d, tmin, tmax, presorted=False):
+        def occl(o, d, tmin, tmax):
             return tsm.occluded_scatter(sc, o, d, tmin, tmax, **cap)
     elif backend == "bundle":
         from raytracer2.ops.cluster import build_clusters
@@ -117,13 +115,13 @@ def make_tracers(scene: Scene, bvh: BVH | None = None,
         scene_min = jnp.min(clusters.aabb_min, axis=0)
         scene_max = jnp.max(clusters.aabb_max, axis=0)
 
-        def closest(o, d, tmin, tmax, presorted=False):
+        def closest(o, d, tmin, tmax):
             return tbm.closest_hit_bundle(
                 clusters, scene.tri_geometry, scene.tri_primitive,
                 o, d, tmin, tmax, scene_min, scene_max,
                 sort_rays=sort_secondary)
 
-        def occl(o, d, tmin, tmax, presorted=False):
+        def occl(o, d, tmin, tmax):
             return tbm.occluded_bundle(
                 clusters, o, d, tmin, tmax, scene_min, scene_max,
                 sort_rays=sort_secondary)
@@ -139,22 +137,22 @@ def make_tracers(scene: Scene, bvh: BVH | None = None,
             f"({STACK_SIZE}); overflow would silently drop subtrees "
             "(ADVICE r1) — deepen STACK_SIZE or rebalance the tree")
 
-        def closest(o, d, tmin, tmax, presorted=False):
+        def closest(o, d, tmin, tmax):
             return traverse.closest_hit(
                 bvh, scene.tri_v0, scene.tri_edge1, scene.tri_edge2,
                 scene.tri_geometry, scene.tri_primitive, o, d, tmin, tmax)
 
-        def occl(o, d, tmin, tmax, presorted=False):
+        def occl(o, d, tmin, tmax):
             return traverse.occluded(
                 bvh, scene.tri_v0, scene.tri_edge1, scene.tri_edge2,
                 o, d, tmin, tmax)
     else:
-        def closest(o, d, tmin, tmax, presorted=False):
+        def closest(o, d, tmin, tmax):
             return intersect_brute_force(
                 o, d, scene.tri_v0, scene.tri_edge1, scene.tri_edge2,
                 scene.tri_geometry, scene.tri_primitive, tmin, tmax)
 
-        def occl(o, d, tmin, tmax, presorted=False):
+        def occl(o, d, tmin, tmax):
             return occluded_brute_force(
                 o, d, scene.tri_v0, scene.tri_edge1, scene.tri_edge2,
                 tmin, tmax)
@@ -223,34 +221,6 @@ def make_bridge(
 
         o, d, tmin, tmax = setup_visibility_ray(surface, sample_position)
         batch = tmin.shape
-        if len(batch) == 2 and batch[0] * batch[1] >= 4096:
-            # pixel-grid launch: shadow-ray origins are the (tile-coherent)
-            # primary surfaces, so a static coherent reorder + the
-            # tracer's presorted path skips the runtime cull sort (a
-            # dense per-ray key pass + argsort + permutation gathers).
-            # Tile order (8x16 screen tiles) is a pure reshape/transpose
-            # both ways — the Z-curve fallback pays one packed [N, 8]
-            # gather in and one [N] gather out.
-            from raytracer2.render.rays import (
-                tile_flatten, tile_shape, tile_unflatten,
-                zorder_permutation)
-
-            h, w = batch
-            packed = jnp.concatenate(
-                [o, d, tmin[..., None], tmax[..., None]], axis=-1)
-            tiles = tile_shape(w, h)
-            if tiles is not None:
-                th, tw = tiles
-                packed = tile_flatten(packed, tw, th)
-            else:
-                zidx, zinv = zorder_permutation(w, h)
-                packed = packed.reshape(-1, 8)[jnp.asarray(zidx)]
-            blocked_z = tracers.occluded(
-                packed[:, 0:3], packed[:, 3:6], packed[:, 6], packed[:, 7],
-                presorted="shadow")
-            if tiles is not None:
-                return ~tile_unflatten(blocked_z, h, w, tw, th)
-            return ~blocked_z[jnp.asarray(zinv)].reshape(batch)
         blocked = tracers.occluded(o.reshape(-1, 3), d.reshape(-1, 3),
                                    tmin.reshape(-1), tmax.reshape(-1))
         return ~blocked.reshape(batch)

@@ -58,15 +58,15 @@ def gbuffer_pass(
     """Trace primary rays and fill the G-buffer + motion vectors
     (g_buffer.rgen:14-47). Returns (GBuffer, motion [H, W, 3]).
 
-    Rays are generated along the static pixel Z-curve and traced with
-    presorted=True: every 256-ray bundle is a compact screen tile, and the
-    tracer skips its runtime cull-sort entirely (dense per-ray key pass +
-    argsort + two permutation gathers). ALL shading work (material fetch,
-    motion vectors, packing, miss masking) happens in Z order — only the
-    finished, packed G-buffer channels are un-Z-ordered, with ONE [N, 10]
-    i32 row gather (floats ride as bitcast i32: exact, and the int path
-    never flushes denormals): one wide gather instead of several
-    narrower ones."""
+    Rays are generated in screen-tile order (the static pixel Z-curve when
+    the viewport does not divide into tiles). The bundle engine's coherence
+    sort is stable and its key is coarse, so rays that tie on it stay in
+    compact tiles rather than scanline strips. ALL shading work (material
+    fetch, motion vectors, packing, miss masking) happens in that order —
+    only the finished, packed G-buffer channels are put back in row order,
+    with ONE [N, 10] i32 row gather (floats ride as bitcast i32: exact, and
+    the int path never flushes denormals): one wide gather instead of
+    several narrower ones."""
     import numpy as np
 
     # coherent ray layout: 8x16 pixel tiles via reshape/transpose when the
@@ -95,7 +95,7 @@ def gbuffer_pass(
 
     rays_z = raysmod.setup_primary_ray(px_z, py_z, g_const.view)
     hit = trace_fn(rays_z.origin, rays_z.direction, rays_z.t_min,
-                   rays_z.t_max, presorted=True)
+                   rays_z.t_max)
 
     def fetch_pack(hit_c, origin_c, direction_c):
         """Material fetch + motion + packing for one pixel chunk."""

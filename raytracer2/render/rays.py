@@ -97,24 +97,12 @@ def tile_shape(width: int, height: int, bundle: int = 128
     return None
 
 
-def tile_flatten(img: jax.Array, tile_w: int, tile_h: int = TILE_H
-                 ) -> jax.Array:
-    """[H, W, ...] -> [H*W, ...] such that every consecutive
-    tile_h*tile_w chunk is one compact screen tile (row-major tile
-    order). Pure reshape+transpose — the gather-free replacement for the
-    Z-curve permutation (a transpose is a bandwidth copy, a permutation
-    a row gather); coherent bundles only need rays that SHARE a chunk to
-    share a screen tile, not any particular order across chunks."""
-    h, w = img.shape[0], img.shape[1]
-    rest = img.shape[2:]
-    x = img.reshape(h // tile_h, tile_h, w // tile_w, tile_w, *rest)
-    x = jnp.swapaxes(x, 1, 2)
-    return x.reshape((h * w,) + rest)
-
-
 def tile_unflatten(flat: jax.Array, height: int, width: int, tile_w: int,
                    tile_h: int = TILE_H) -> jax.Array:
-    """Inverse of tile_flatten: [H*W, ...] tile order -> [H, W, ...]."""
+    """[H*W, ...] in tile order (every consecutive tile_h*tile_w chunk is
+    one compact screen tile, tiles row-major) -> [H, W, ...]. A pure
+    reshape+transpose: a bandwidth copy, where a permutation would be a
+    row gather."""
     rest = flat.shape[1:]
     x = flat.reshape(height // tile_h, width // tile_w, tile_h, tile_w,
                      *rest)
@@ -126,7 +114,7 @@ def tile_unflatten(flat: jax.Array, height: int, width: int, tile_w: int,
 def tile_permutation(width: int, height: int, tile_w: int,
                      tile_h: int = TILE_H) -> np.ndarray:
     """tidx[j] = row-major pixel index of the j-th pixel in tile order
-    (the numpy mirror of tile_flatten, for compile-time ray constants)."""
+    (the inverse of tile_unflatten, for compile-time ray constants)."""
     lin = np.arange(width * height, dtype=np.int32).reshape(height, width)
     x = lin.reshape(height // tile_h, tile_h, width // tile_w, tile_w)
     return np.swapaxes(x, 1, 2).reshape(-1)

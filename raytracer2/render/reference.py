@@ -83,9 +83,9 @@ def render_reference(
         textures_enabled = bool(g_const.textures)
     environment = g_const.environment
 
-    # pixels are laid out along a Z-curve so every trace launch sees
-    # screen-tile-coherent ray batches; primary rays skip the runtime
-    # coherence sort entirely (rays.zorder_permutation). Per-pixel RNG and
+    # pixels are laid out along a Z-curve so every chunk is a compact
+    # screen region and its trace launches see coherent ray batches
+    # (rays.zorder_permutation). Per-pixel RNG and
     # radiance are keyed by (px, py) values, so the image is bit-identical
     # to the row-major layout after the final unpermute.
     zidx, zinv = raysmod.zorder_permutation(width, height)
@@ -104,19 +104,6 @@ def render_reference(
     valid_all = jnp.arange(px_all.shape[0]) < n_img  # pad lanes never trace
     n_chunks = px_all.shape[0] // n
 
-    # tolerate trace_fns without the presorted fast-path hint
-    import inspect
-    try:
-        _accepts_presorted = "presorted" in inspect.signature(
-            trace_fn).parameters
-    except (TypeError, ValueError):
-        _accepts_presorted = False
-    if _accepts_presorted:
-        tf = trace_fn
-    else:
-        def tf(o, d, tn, tx, presorted=False):
-            return trace_fn(o, d, tn, tx)
-
     def tf_compact(o, d, tn, tx):
         """Bounce-level dead-lane compaction: when at least half the
         lanes are dead, trace a half-size batch of the live ones. Default
@@ -131,11 +118,11 @@ def render_reference(
         live_count = jnp.sum((~dead).astype(jnp.int32))
 
         def full(_):
-            return tf(o, d, tn, tx)
+            return trace_fn(o, d, tn, tx)
 
         def half(_):
             perm = jnp.argsort(dead)[:h]  # live lanes first, stable
-            rec = tf(o[perm], d[perm], tn[perm], tx[perm])
+            rec = trace_fn(o[perm], d[perm], tn[perm], tx[perm])
 
             def back(leaf, fill):
                 out = jnp.full((nn,) + leaf.shape[1:], fill, leaf.dtype)
@@ -171,8 +158,8 @@ def render_reference(
         # primary traces; the sample RNG streams start at the bounce-0
         # BRDF draw, which stays inside the loop)
         t_min0 = jnp.full((n,), 0.001, jnp.float32)
-        hit0 = tf(primary.origin, primary.direction, t_min0,
-                  jnp.where(valid, BACKGROUND_DEPTH, -1.0), presorted=True)
+        hit0 = trace_fn(primary.origin, primary.direction, t_min0,
+                  jnp.where(valid, BACKGROUND_DEPTH, -1.0))
         surface0, emission0 = surface_from_hit(
             scene, primary.origin, primary.direction, hit0,
             textures_enabled=textures_enabled)

@@ -249,16 +249,15 @@ def test_checkerboard_matches_full_grid(setup):
 
 
 def test_zorder_shadow_visibility_matches_direct(setup):
-    """Pixel-grid visibility batches (>= 4096 rays) route through a static
-    Z-curve reorder + the tracer's presorted path (app_bridge.py
-    get_conservative_visibility). The permutation + inverse must be
-    transparent: results identical to tracing the rays in launch order."""
+    """A pixel-grid visibility batch through the bridge
+    (app_bridge.py get_conservative_visibility) gives the same mask, in
+    the grid's shape, as tracing setup_visibility_ray's rays directly."""
     from raytracer2.render.app_bridge import make_bridge
     from raytracer2.render.shading import setup_visibility_ray
     from raytracer2.render.surface import empty_surface
 
     renderer, g = setup
-    n = 64  # 64*64 = 4096: the smallest grid that takes the Z-reorder path
+    n = 64
     key = jax.random.PRNGKey(7)
     pos = jax.random.uniform(key, (n, n, 3), minval=-4.0, maxval=4.0)
     surface = empty_surface((n, n))._replace(
